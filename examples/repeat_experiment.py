@@ -33,6 +33,9 @@ def main():
     ap.add_argument("--no-rumination", action="store_true")
     args = ap.parse_args()
 
+    from rumi_slam_tpu.utils import compile_cache
+
+    compile_cache.configure()
     from rumi_slam_tpu.config import tiny_config
     from rumi_slam_tpu.evaluation import harness
 

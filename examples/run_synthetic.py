@@ -34,8 +34,13 @@ def main():
     ap.add_argument("--no-rumination", action="store_true")
     args = ap.parse_args()
 
+    import importlib.util
+
     import numpy as np
 
+    from rumi_slam_tpu.utils import compile_cache
+
+    compile_cache.configure()
     from rumi_slam_tpu.config import tiny_config
     from rumi_slam_tpu.evaluation import ate, harness, plot
     from rumi_slam_tpu.io.synthetic import SyntheticSequence
@@ -98,8 +103,11 @@ def main():
                         if h.get("result") == "merged"),
     }
     harness.write_result_csv(row, out / "result.csv")
-    plot.plot_trajectory(out / "traj.png", kt, kp, gt_t, gt_p)
-    plot.plot_map(out / "map.png", slam.ms)
+    if importlib.util.find_spec("matplotlib") is None:
+        print("matplotlib is not installed: traj.png and map.png skipped")
+    else:
+        plot.plot_trajectory(out / "traj.png", kt, kp, gt_t, gt_p)
+        plot.plot_map(out / "map.png", slam.ms)
     digest = checkpoint.save(slam.ms, out / "map.ckpt")
     print(f"\nartifacts in {out}/ (checkpoint sha256 {digest[:12]}…)")
     (out / "summary.json").write_text(json.dumps(row, indent=2))

@@ -118,8 +118,13 @@ def main():
                     help="serve the live map viewer on this port")
     args = ap.parse_args()
 
+    import importlib.util
+
     import numpy as np
 
+    from rumi_slam_tpu.utils import compile_cache
+
+    compile_cache.configure()
     from rumi_slam_tpu.evaluation import ate as ate_mod
     from rumi_slam_tpu.evaluation import harness, plot
     from rumi_slam_tpu.io import datasets, settings, trajectory
@@ -210,6 +215,7 @@ def main():
             h.get("upload_mb", 0.0) for h in coord.history)
         row["upload_mb_raw"] = sum(
             h.get("upload_mb_raw", 0.0) for h in coord.history)
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
     try:
         gt_times, gt_xyz, gt_quat = seq.groundtruth()
     except OSError:
@@ -228,10 +234,14 @@ def main():
         gt_poses = np.asarray(jax.vmap(lie.se3_inverse)(jnp.asarray(Twc)))
         m = ate_mod.evaluate_trajectory(times, poses, gt_times, gt_poses)
         row.update(ate=m["ate"], rate=m["rate"], n_matched=m["n_matched"])
-        plot.plot_trajectory(out_dir / "traj.png", times, poses,
-                             gt_times, gt_poses)
+        if has_mpl:
+            plot.plot_trajectory(out_dir / "traj.png", times, poses,
+                                 gt_times, gt_poses)
     harness.write_result_csv(row, out_dir / "result.csv")
-    plot.plot_map(out_dir / "map.png", slam.ms)
+    if has_mpl:
+        plot.plot_map(out_dir / "map.png", slam.ms)
+    else:
+        print("matplotlib is not installed: traj.png and map.png skipped")
     print(json.dumps(row))
     print("stage timings:\n" + slam.timer.report())
     print(f"results in {out_dir}")

@@ -1,6 +1,6 @@
-"""rumi_slam_tpu — a TPU-native visual SLAM engine.
+"""rumi_slam_tpu — a visual SLAM engine written as JAX array programs.
 
-A brand-new JAX/XLA/Pallas implementation of the RUMI-SLAM capability set
+A JAX/XLA implementation of the RUMI-SLAM capability set
 ("Rumination meets VSLAM", T-IE 2023): monocular ORB tracking, local mapping
 with windowed bundle adjustment, multi-submap (Atlas) handling on tracking
 loss, and the rumination track — a non-realtime back-submap builder whose
@@ -13,7 +13,7 @@ Design stance (vs the reference C++ at /root/reference):
   * per-frame C++ hot loops  ->  one jitted array program per tracking step;
   * g2o Levenberg-Marquardt  ->  a batched LM engine with Schur-complement
     camera/point elimination in JAX (``optim``);
-  * DBoW2 retrieval  ->  brute-force batched Hamming scoring on the MXU;
+  * DBoW2 retrieval  ->  brute-force batched int8 Hamming scoring;
   * ROS TCP edge/cloud split  ->  a host-staged frame queue feeding a
     rumination shard on separate devices (``rumination``, ``parallel``).
 """
@@ -22,8 +22,8 @@ import jax as _jax
 
 # Geometry Jacobians, Hessian assembly, Schur reduction, and Horn/Umeyama
 # correlation matrices are all small float matmuls whose accuracy directly
-# bounds optimizer convergence; on TPU the MXU default (bfloat16 inputs)
-# injects ~2e-3 relative error into them.  Force true float32 matmuls.
+# bounds optimizer convergence; the GPU default runs float32 matmuls in TF32
+# (about three decimal digits).  Force true float32 matmuls.
 # The Hamming matchers are int8 dot_generals with an int32 accumulator and
 # are unaffected by this setting.
 import os as _os

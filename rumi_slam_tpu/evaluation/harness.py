@@ -42,8 +42,8 @@ def run_once(seq, config, *, seed: int = 0, enable_rumination: bool = True,
     system and discards it, so every XLA compile (extraction, init, LBA,
     loop closing, merge, GBA) is cached in-process before the replay clock
     starts.  The reference's C++ has no compile stall; without this a paced
-    TPU run spends the first ~80 s compiling and every frame of a ~50 s
-    sequence expires before the tracker sees it."""
+    run spends its first frames compiling, and they expire before the
+    tracker sees them."""
     import jax
 
     from ..evaluation import ate as ate_mod

@@ -1,6 +1,6 @@
 """Closed-form Sim(3)/SE(3) point-cloud alignment: Horn and Umeyama.
 
-TPU-native equivalent of the reference's Sim3Solver closed forms
+JAX equivalent of the reference's Sim3Solver closed forms
 (/root/reference/src/rumi-slam/lib_src/Sim3Solver.cc:406-441 — Horn
 ``ComputeSim3`` and Eigen::umeyama-based ``umeyamaSolve``).  Both are written
 as weighted batched least squares so RANSAC becomes a ``vmap`` over hypothesis
@@ -58,7 +58,7 @@ def horn_alignment(src, dst, weights=None):
     Same contract as :func:`umeyama_alignment`; this is the solver the
     reference uses inside Sim3Solver RANSAC (Sim3Solver.cc:437-540).  Uses the
     4x4 quaternion eigenproblem, so it needs only a symmetric eigendecomposition
-    (cheap and batched on TPU).
+    (cheap and batched on the device).
     """
     n = src.shape[0]
     w = jnp.ones((n,), src.dtype) if weights is None else weights

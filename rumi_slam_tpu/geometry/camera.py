@@ -1,6 +1,6 @@
 """Pinhole camera model: projection, unprojection, analytic Jacobians.
 
-TPU-native equivalent of the reference's CameraModels/Pinhole.cpp
+JAX equivalent of the reference's CameraModels/Pinhole.cpp
 (/root/reference/src/rumi-slam/lib_src/CameraModels/Pinhole.cpp:1-168).
 Intrinsics are a flat ``[4]`` array ``(fx, fy, cx, cy)``; all functions
 broadcast over leading batch axes.  Distortion is handled at the host edge

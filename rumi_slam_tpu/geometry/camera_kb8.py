@@ -1,6 +1,6 @@
 """Kannala-Brandt 8-parameter fisheye camera model.
 
-TPU-native equivalent of the reference's CameraModels/KannalaBrandt8.cpp
+JAX equivalent of the reference's CameraModels/KannalaBrandt8.cpp
 (/root/reference/src/rumi-slam/lib_src/CameraModels/KannalaBrandt8.cpp:1-433):
 equidistant projection with a degree-9 odd polynomial in the incidence angle,
 

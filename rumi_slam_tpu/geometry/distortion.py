@@ -1,6 +1,6 @@
 """Radial-tangential (OpenCV "plumb bob") distortion + keypoint undistortion.
 
-TPU-native equivalent of the reference's Frame::UndistortKeyPoints
+JAX equivalent of the reference's Frame::UndistortKeyPoints
 (/root/reference/src/rumi-slam/lib_src/Frame.cc — cv::undistortPoints over the
 extracted keypoints, using Camera1.k1/k2/p1/p2[/k3] from the YAML settings;
 Settings.cc reads the same five coefficients).  The pipeline stays pinhole:

@@ -1,6 +1,6 @@
 """Lie groups for SLAM: SO(3), SE(3), Sim(3) as pure JAX array functions.
 
-TPU-native replacement for the reference's Sophus dependency
+JAX replacement for the reference's Sophus dependency
 (/root/reference/src/rumi-slam/Thirdparty/Sophus, used throughout e.g.
 lib_src/KeyFrame.cc poses, lib_src/Optimizer.cc Sim3 vertices).  Everything is
 batched-friendly: each function operates on the trailing axes and can be

@@ -1,6 +1,6 @@
 """Two-view triangulation and epipolar helpers (batched, pure JAX).
 
-TPU-native equivalent of the reference's GeometricTools
+JAX equivalent of the reference's GeometricTools
 (/root/reference/src/rumi-slam/lib_src/GeometricTools.cc:1-68 — SVD DLT
 triangulation, fundamental-from-poses) used by LocalMapping::CreateNewMapPoints
 and TwoViewReconstruction.  Batched over trailing axes with ``vmap``-free

@@ -1,4 +1,4 @@
-"""Visual-inertial subsystem (TPU-native equivalent of the reference's
+"""Visual-inertial subsystem (JAX equivalent of the reference's
 ImuTypes.cc / G2oTypes.cc / Optimizer.cc inertial paths).
 
 The reference compiles full ORB-SLAM3 inertial support into the library even

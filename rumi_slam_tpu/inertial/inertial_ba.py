@@ -1,6 +1,6 @@
 """Visual-inertial optimization problem builders.
 
-TPU-native equivalents of the reference's inertial g2o problems
+JAX equivalents of the reference's inertial g2o problems
 (/root/reference/src/rumi-slam/lib_src/Optimizer.cc):
 
 * ``inertial_only_optimization``  — InertialOptimization (:3340/:3512/:3664):

@@ -1,4 +1,4 @@
-"""IMU preintegration as a single `lax.scan` — TPU-native equivalent of the
+"""IMU preintegration as a single `lax.scan` — JAX equivalent of the
 reference's IMU::Preintegrated (ImuTypes.cc:106-421: IntegrateNewMeasurement,
 delta-R/V/P accumulation, bias Jacobians JRg/JVg/JVa/JPg/JPa, covariance
 propagation, and the GetDeltaRotation/Velocity/Position bias-update

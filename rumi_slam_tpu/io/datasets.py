@@ -1,6 +1,6 @@
 """Host-side dataset loaders: TUM RGB-D, EuRoC, ICL-NUIM.
 
-TPU-native equivalent of the reference's dataset replay layer:
+JAX equivalent of the reference's dataset replay layer:
 
 * TUM ``rgb.txt`` parsing mirrors ``Grabber::RunTxt``
   (/root/reference/src/rumi-slam/src/cloud_edge_main.cpp:550-620);

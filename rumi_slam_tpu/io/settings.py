@@ -1,6 +1,6 @@
 """YAML settings reader + per-dataset presets.
 
-TPU-native equivalent of the reference's Settings class
+JAX equivalent of the reference's Settings class
 (/root/reference/src/rumi-slam/lib_src/Settings.cc:1-638 — the typed reader of
 ``File.version: "1.0"`` YAML settings: Camera1.* calibration, Camera.fps /
 width / height, ORBextractor.*, optional distortion and stereo fields) and of

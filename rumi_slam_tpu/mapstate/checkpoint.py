@@ -1,6 +1,6 @@
 """MapState checkpoint/resume: npz snapshot with integrity checksum.
 
-TPU-native equivalent of the reference's Atlas save/load (boost serialization
+JAX equivalent of the reference's Atlas save/load (boost serialization
 with MD5 vocabulary checksum, /root/reference/src/rumi-slam/lib_src/
 System.cc:29-36,220, SaveAtlas/LoadAtlas System.h:217-218).  The SoA MapState
 serializes trivially: one compressed npz of the arrays + scalar counters,

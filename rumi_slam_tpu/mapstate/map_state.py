@@ -1,6 +1,6 @@
 """MapState: the whole SLAM map as structure-of-arrays tensors.
 
-TPU-native re-design of the reference's pointer-graph data model — Frame
+JAX re-design of the reference's pointer-graph data model — Frame
 (/root/reference/src/rumi-slam/lib_src/Frame.cc), KeyFrame (KeyFrame.cc),
 MapPoint (MapPoint.cc), Map (Map.cc) and Atlas (Atlas.cc) — as ONE immutable
 pytree of fixed-capacity arrays with validity masks:

@@ -1,6 +1,6 @@
 """FAST-16/9 corner detector as a dense, branch-free array program.
 
-TPU-native replacement for the per-cell OpenCV FAST calls in the reference's
+JAX replacement for the per-cell OpenCV FAST calls in the reference's
 ORBextractor::ComputeKeyPointsOctTree
 (/root/reference/src/rumi-slam/lib_src/ORBextractor.cc:726-860).  Instead of
 scalar pixel loops, the whole segment test runs as 16 shifted-image compares +

@@ -29,13 +29,10 @@ def gaussian_kernel1d(sigma: float, radius: int) -> np.ndarray:
 def sep_conv2d(img, k1d):
     """Separable 2D convolution with reflect padding, [H,W] float32.
 
-    Implemented as shift-and-add (slice + scalar-multiply-accumulate), NOT
-    ``lax.conv``: small-radius separable filters are bandwidth-bound VPU work,
-    and measured on TPU v5e a ``lax.conv`` producer poisons any downstream
-    row-gather of its output (23 ms vs 3.5 ms for the ORB patch gather —
-    the conv's tiled output layout defeats the gather engine, and an
-    optimization_barrier does not undo it).  Shifts keep the default layout
-    and fuse cleanly into consumers.
+    Implemented as shift-and-add (slice + scalar-multiply-accumulate), not
+    ``lax.conv``: small-radius separable filters are bandwidth-bound
+    elementwise work, and shifts keep the default layout and fuse cleanly
+    into consumers such as the ORB patch gather.
     """
     r = (len(k1d) - 1) // 2
     k = jnp.asarray(k1d)
@@ -79,11 +76,9 @@ def gather_patches(img, centers_yx, patch_radius: int):
     Returns [N, 2r+1, 2r+1].  Centers near the border read into a
     reflect-padded canvas, so all outputs are well-defined.
 
-    TPU note: implemented rows-then-columns — a whole-row gather (contiguous,
-    bandwidth-friendly) followed by per-patch dynamic column slices.  This
-    beats both naive 2D dynamic_slice and flat scalar gathers on the scalar-
-    gather-bound TPU gather engine (measured 2.4 ms vs 3.1/8.5 ms for ~500
-    39x39 patches from 640x480).
+    Implemented rows-then-columns: a whole-row gather (contiguous,
+    bandwidth-friendly) followed by per-patch dynamic column slices, instead
+    of a naive 2D dynamic_slice or flat scalar gathers.
     """
     r = patch_radius
     padded = jnp.pad(img, r, mode="reflect")

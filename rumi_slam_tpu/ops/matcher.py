@@ -1,6 +1,6 @@
-"""Batched Hamming descriptor matching on the MXU.
+"""Batched Hamming descriptor matching as int8 matmuls.
 
-TPU-native replacement for the reference's ORBmatcher
+JAX replacement for the reference's ORBmatcher
 (/root/reference/src/rumi-slam/lib_src/ORBmatcher.cc — SearchByProjection :39
 /:1498, SearchForInitialization :581, SearchByBoW :682, Fuse :1015,
 DescriptorDistance :1830).  All of those strategies reduce to ONE primitive
@@ -8,10 +8,10 @@ here: a dense masked Hamming-distance matrix plus per-call-site masks
 (projection windows, grid radii, octave gates), then best/second-best
 selection with ratio and rotation-consistency checks.
 
-The distance matrix itself rides the MXU: packed 256-bit descriptors are
-unpacked to ±1 int8 vectors and  ham(a,b) = (256 - a·b)/2  is an int8 matmul —
-exactly the kind of large batched GEMM the hardware is built for.  A popcount
-path is kept as the verification oracle.
+The distance matrix itself is one product: packed 256-bit descriptors are
+unpacked to ±1 int8 vectors and  ham(a,b) = (256 - a·b)/2  is an int8 matmul
+with int32 accumulation (exact), which XLA hands to the int8 tensor cores.
+A popcount path is kept as the verification oracle.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ def unpack_pm1(desc_packed):
 
 
 def hamming_matrix(desc_a, desc_b):
-    """Dense Hamming distances [Na, Nb] (float32) via int8 MXU matmul."""
+    """Dense Hamming distances [Na, Nb] (float32) via an int8 matmul."""
     a = unpack_pm1(desc_a)
     b = unpack_pm1(desc_b)
     dots = jax.lax.dot_general(
@@ -115,9 +115,9 @@ def match_chunked(desc_a, valid_a, desc_b, valid_b, *, n_chunks: int,
 
     ``desc_b`` is processed in ``n_chunks`` row blocks under a lax.scan that
     carries the running (best, second-best, argbest) per query row — peak
-    HBM is one [Na, Nb/n_chunks] block instead of the whole matrix (the
-    r2/r3 whole-map-relocalization scaling wall: [1024, 256*1024] f32 would
-    be ~1 GB at full KF capacity).
+    device memory is one [Na, Nb/n_chunks] block instead of the whole matrix
+    (the r2/r3 whole-map-relocalization scaling wall: [1024, 256*1024] f32
+    would be ~1 GB at full KF capacity).
 
     Returns (idx_b [Na] int32 global column, -1 if none; mdist [Na]).
     """
@@ -156,6 +156,32 @@ def match_chunked(desc_a, valid_a, desc_b, valid_b, *, n_chunks: int,
         body, init, (desc_b_c, valid_b_c, base))
     ok = (best <= max_dist) & (best < ratio * second) & valid_a
     return jnp.where(ok, idx, -1), jnp.where(ok, best, jnp.inf)
+
+
+def window_match_reference(desc_a, desc_b, uv_a, uv_b, radius, valid_a,
+                           valid_b, *, max_dist=TH_LOW, ratio=0.9):
+    """Best match of each ``a`` among the ``b`` within ``radius`` px (the
+    projection window of SearchByProjection): dense Hamming matrix, radius
+    mask, top-2 selection.  Returns (idx_b [Na], mdist [Na]) as ``match``.
+    The plain path: it runs on the CPU and is the reference the fused
+    kernel is checked against."""
+    return match(hamming_matrix(desc_a, desc_b), valid_a, valid_b,
+                 mask=radius_mask(uv_a, uv_b, radius), max_dist=max_dist,
+                 ratio=ratio)
+
+
+def window_match(desc_a, desc_b, uv_a, uv_b, radius, valid_a, valid_b, *,
+                 max_dist=TH_LOW, ratio=0.9):
+    """``window_match_reference``'s contract, chosen per platform when the
+    program is lowered: the plain path on the CPU, the fused Pallas kernel
+    (ops.fused_matcher) on CUDA GPUs, and an error on any other platform."""
+    from .fused_matcher import fused_match
+
+    kw = dict(max_dist=max_dist, ratio=ratio)
+    return jax.lax.platform_dependent(
+        desc_a, desc_b, uv_a, uv_b, radius, valid_a, valid_b,
+        cpu=partial(window_match_reference, **kw),
+        cuda=partial(fused_match, **kw))
 
 
 def rotation_consistency(idx_b, angle_a, angle_b, keep_top=3):

@@ -1,6 +1,6 @@
 """Pyramidal Lucas-Kanade optical flow (sparse, vmapped, pure JAX).
 
-TPU-native replacement for the OpenCV ``calcOpticalFlowPyrLK`` call inside the
+JAX replacement for the OpenCV ``calcOpticalFlowPyrLK`` call inside the
 reference's lost-frame sampler (/root/reference/src/rumi-slam/lib_src/
 KFDSample.cc:131 — flow magnitude drives the PD-controlled keyframe-density
 sampling of lost frames).  Fixed iteration counts, masked outputs.

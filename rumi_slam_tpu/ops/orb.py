@@ -1,6 +1,6 @@
 """Oriented-BRIEF (ORB-style) feature extraction as one jitted array program.
 
-TPU-native re-design of the reference's ORBextractor
+JAX re-design of the reference's ORBextractor
 (/root/reference/src/rumi-slam/lib_src/ORBextractor.cc — pyramid :1093, FAST +
 quad-tree :726, intensity-centroid orientation, BRIEF descriptors :989-1091).
 Differences by design, not omission:
@@ -11,11 +11,12 @@ Differences by design, not omission:
   BRIEF paper) rather than OpenCV's learned table — descriptors are
   self-consistent within this framework, which is all SLAM needs;
 * rotation is discretized to 30 bins of 12 degrees (exactly OpenCV ORB's
-  discretization) so BRIEF sampling becomes ONE ±1-difference MXU matmul over
+  discretization) so BRIEF sampling becomes ONE ±1-difference bf16 matmul over
   all 30 precomputed rotated index tables (column b*256+k = point1 - point0 of
   bit k at bin b; ``patch @ D > 0`` IS the BRIEF test) followed by a bin
-  gather — faster than per-keypoint rotated gathers (scalar-gather-bound on
-  TPU), and half the FLOPs/HBM of sampling both pattern points separately;
+  gather — one tensor-core product instead of per-keypoint rotated
+  gathers, and half the FLOPs and device-memory traffic of sampling both
+  pattern points separately;
 * Gaussian blur runs once per pyramid LEVEL (the reference blurs level images
   too, ORBextractor.cc:1080); orientation reads the unblurred patches;
 * everything is static-shape: each pyramid level contributes a fixed budget
@@ -50,10 +51,10 @@ PATTERN = np.clip(
 
 def _build_rotation_tables():
     """Per-bin flattened patch indices [N_ROT_BINS, 512] and the ±1
-    DIFFERENCE sampling matrix [PATCH*PATCH, N_ROT_BINS*256] for the MXU
+    DIFFERENCE sampling matrix [PATCH*PATCH, N_ROT_BINS*256] for the matmul
     path: column (b*256 + k) holds +1 at bin-b's rotated index of pattern
     point 1 of bit k and -1 at point 0, so ``patch @ D > 0`` IS the BRIEF
-    test — half the FLOPs and half the HBM intermediate of sampling both
+    test — half the FLOPs and half the intermediate of sampling both
     points separately."""
     tabs = []
     for b in range(N_ROT_BINS):
@@ -118,7 +119,7 @@ def _orientation(patches):
 
 
 def _descriptors(patches, angles):
-    """Rotation-binned BRIEF via one ±1-difference MXU matmul.
+    """Rotation-binned BRIEF via one ±1-difference bf16 matmul.
 
     patches: [N, P, P] (blurred); angles: [N].  Returns packed [N, 8] uint32.
     """

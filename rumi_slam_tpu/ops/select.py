@@ -3,7 +3,7 @@
 The reference spreads keypoints with a sequential quad-tree
 (ORBextractor::DistributeOctTree,
 /root/reference/src/rumi-slam/lib_src/ORBextractor.cc:538-724) — inherently
-serial.  The TPU-native equivalent: per-cell top-k over a fixed grid followed
+serial.  The JAX equivalent: per-cell top-k over a fixed grid followed
 by a global top-N, which yields the same spatial-spread effect as a fully
 parallel reduction (SURVEY.md §7 "hard parts").
 """

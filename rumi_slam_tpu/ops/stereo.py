@@ -1,6 +1,6 @@
 """Stereo and RGB-D depth frontends.
 
-TPU-native equivalents of the reference's stereo/RGB-D measurement prep in
+JAX equivalents of the reference's stereo/RGB-D measurement prep in
 Frame (/root/reference/src/rumi-slam/lib_src/Frame.cc):
 
 * ``match_stereo``       — Frame::ComputeStereoMatches: for every left
@@ -8,7 +8,7 @@ Frame (/root/reference/src/rumi-slam/lib_src/Frame.cc):
   the disparity range by descriptor distance, yielding the virtual right
   u-coordinate ``ur`` and metric depth ``z = bf / disparity``.  The
   reference's per-row candidate lists + SAD subpixel slide become one masked
-  Hamming matrix on the MXU plus a parabolic subpixel refinement on the
+  int8 Hamming matrix plus a parabolic subpixel refinement on the
   winning disparity.
 * ``depth_from_rgbd``    — Frame::ComputeStereoFromRGBD: sample the depth map
   at each keypoint, derive ``ur = u - bf / z``.

@@ -1,7 +1,7 @@
 """Bundle adjustment: Levenberg-Marquardt with Schur-complement camera/point
 elimination, fully batched in JAX.
 
-TPU-native replacement for the reference's g2o problems — Optimizer::
+JAX replacement for the reference's g2o problems — Optimizer::
 BundleAdjustment (/root/reference/src/rumi-slam/lib_src/Optimizer.cc:54),
 LocalBundleAdjustment (:1003, welding overload :3768) and the BlockSolver_6_3
 Schur machinery (Thirdparty/g2o/g2o/core/block_solver.h).  One engine serves
@@ -16,7 +16,7 @@ Problem layout (SoA, static shapes):
   uv      [O, 2]   measured pixels
   conf    [O]      information weight (0 disables; octave inv_sigma2 here)
 
-Math per LM iteration (all einsum/segment_sum — MXU + VPU friendly):
+Math per LM iteration (all einsum/segment_sum — batched and fusable):
   Hcc  = sum_o w Jc^T Jc          (block-diag [C,6,6])
   Hpp  = sum_o w Jp^T Jp          ([P,3,3], closed-form 3x3 inverse)
   W    = scatter of w Jc^T Jp     ([P,C,6,3] dense cross blocks)
@@ -25,7 +25,7 @@ Math per LM iteration (all einsum/segment_sum — MXU + VPU friendly):
 
 The dense [P,C,6,3] cross-block tensor bounds the memory envelope to
 P*C*72 bytes — callers window the problem (local BA) or shard it
-(parallel/sharded_ba.py performs the same reduction with psum over ICI).
+(parallel/sharded_ba.py performs the same reduction with psum over NVLink).
 """
 
 from __future__ import annotations

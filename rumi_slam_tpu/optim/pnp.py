@@ -1,6 +1,6 @@
 """PnP: camera pose from 2D-3D matches via DLT-RANSAC + LM refinement.
 
-TPU-native equivalent of the reference's MLPnPsolver
+JAX equivalent of the reference's MLPnPsolver
 (/root/reference/src/rumi-slam/lib_src/MLPnPsolver.cpp, used only by
 Tracking::Relocalization at Tracking.cc:3232-3255).  Re-designed as vmapped
 fixed-iteration RANSAC over 6-point DLT hypotheses, with the winning pose
@@ -80,7 +80,7 @@ def pnp_ransac(
     defaults high (1024): per-hypothesis success runs far below the naive
     inlier-rate^6 because 6-point DLT poses from noisy-depth maps are sloppy
     even when every sample row is a true match; the whole batch is one vmap,
-    so hypotheses are nearly free on the MXU.
+    so hypotheses are nearly free on the device.
     """
     n = X_w.shape[0]
     rays = camera.unproject(K, uv)

@@ -1,6 +1,6 @@
 """Sim(3) pose-graph (essential-graph) optimization.
 
-TPU-native equivalent of the reference's Optimizer::OptimizeEssentialGraph
+JAX equivalent of the reference's Optimizer::OptimizeEssentialGraph
 (/root/reference/src/rumi-slam/lib_src/Optimizer.cc:1357 and merge variant
 :1625): Gauss-Newton over per-keyframe Sim3 vertices with relative-pose
 residuals on spanning-tree + covisibility + loop edges, then point correction

@@ -1,6 +1,6 @@
 """Motion-only bundle adjustment: one SE(3) pose vs fixed 3D points.
 
-TPU-native equivalent of the reference's Optimizer::PoseOptimization
+JAX equivalent of the reference's Optimizer::PoseOptimization
 (/root/reference/src/rumi-slam/lib_src/Optimizer.cc:723-1000): a unary-edge LM
 problem solved 4 rounds x fixed iterations with chi-square outlier
 re-classification between rounds (chi2 5.991 for mono) — here as one jitted

@@ -1,6 +1,6 @@
 """Monocular two-view initialization: essential-matrix RANSAC + cheirality.
 
-TPU-native equivalent of the reference's TwoViewReconstruction
+JAX equivalent of the reference's TwoViewReconstruction
 (/root/reference/src/rumi-slam/lib_src/TwoViewReconstruction.cc — 200x8-point
 RANSAC for H and F in two host threads, model selection, motion decomposition
 and cheirality-checked triangulation; entry via Pinhole::ReconstructWithTwoViews

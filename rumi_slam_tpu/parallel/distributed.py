@@ -1,13 +1,13 @@
-"""Multi-host initialization + mesh construction (the DCN story).
+"""Multi-host initialization + mesh construction.
 
 The reference distributes by ROS TCP between an edge PC and a cloud server
 (/root/reference/src/rumi-slam/launch/main.launch remappings;
-CloudSlam actionlib).  The TPU-native equivalent is a JAX multi-process
+CloudSlam actionlib).  The equivalent here is a JAX multi-process
 runtime: each host runs this framework, ``jax.distributed`` links them over
-DCN, and work is placed by sharding over a global ``Mesh`` whose axes are
-laid out so collectives ride ICI within a host and touch DCN only for the
-rumination hand-off (SURVEY.md §2.5; scaling-book recipe: mesh axes ordered
-[dcn_host, ici_chip]).
+the network, and work is placed by sharding over a global ``Mesh`` whose axes
+are laid out so collectives stay on NVLink within a host and cross the
+network only for the rumination hand-off (SURVEY.md §2.5: mesh axes ordered
+[host, chip]).
 
 Roles:
 * ``initialize()`` — one call per process before any jax computation;
@@ -54,10 +54,10 @@ def global_mesh(hosts: int | None = None):
     """("host", "chip") mesh over every device of every process.
 
     Shardings that keep the "host" axis replicated (or reduce over "chip"
-    first) confine their collectives to ICI; only axes split over "host"
-    pay DCN latency — the layout rule the tracking/rumination split follows
-    (rumination bundles are the one DCN transfer, by design the same place
-    the reference pays its ROS-TCP upload).
+    first) confine their collectives to NVLink; only axes split over "host"
+    pay network latency — the layout rule the tracking/rumination split
+    follows (rumination bundles are the one cross-host transfer, by design
+    the same place the reference pays its ROS-TCP upload).
     """
     import jax
     import numpy as np

@@ -1,8 +1,8 @@
-"""Distributed global bundle adjustment: Schur reduction over ICI collectives.
+"""Distributed global bundle adjustment: Schur reduction over collectives.
 
 The reference has no distributed optimizer at all (SURVEY.md §2.5: its only
 "distribution" is ROS TCP between edge and cloud processes); scaling global BA
-across a TPU pod slice is this framework's replacement for the reference's
+across the GPUs of a host is this framework's replacement for the reference's
 single-threaded g2o GlobalBundleAdjustemnt (/root/reference/src/rumi-slam/
 lib_src/Optimizer.cc:48, run in a side thread by CloudMerging.cc:1957).
 
@@ -14,10 +14,10 @@ Sharding contract (mesh axis ``ba``):
   * Cameras are replicated (the reduced system [6C,6C] is small); each device
     solves it identically after the psum — no broadcast needed.
   * Point updates are computed locally per shard; nothing but the [6C,6C]+
-    [6C] Schur terms ever crosses ICI per iteration.
+    [6C] Schur terms ever crosses NVLink per iteration.
 
 This is the standard distributed-Hessian-assembly recipe mapped onto
-jax.shard_map + psum; on hardware the psum rides ICI rings.
+jax.shard_map + psum; on GPUs XLA hands the psum to NCCL over NVLink.
 """
 
 from __future__ import annotations
@@ -200,7 +200,7 @@ def sharded_bundle_adjust(
 # matrix-free.  Every term of the matvec shards over points; the only
 # cross-device traffic per CG iteration is a psum of a [C,6] vector
 # (3 KB at C=128 vs 2.4 MB for dense S) plus two scalars — a payload that
-# rides an ICI ring in microseconds.  The per-LM-iteration psum of the
+# crosses NVLink in microseconds.  The per-LM-iteration psum of the
 # block-diagonal Hcc [C,6,6] (18 KB) doubles as the block-Jacobi
 # preconditioner.
 #

@@ -34,6 +34,8 @@ class RuminationBackend:
         # forensics from the most recent cross-gap weld (anchor counts,
         # scale estimate + spread) — surfaced into the merge info rows
         self.last_weld_info: Optional[dict] = None
+        # why the most recent build returned None (None after a success)
+        self.last_failure: Optional[str] = None
 
         # offline budgets: the bundle is short (~30-130 frames) and paid for
         # once, so keyframe every frame and give up on dead frames fast (the
@@ -76,6 +78,10 @@ class RuminationBackend:
     #: _normalize); 0 disables
     BUNDLE_BLUR_SIGMA = 2.5
 
+    @staticmethod
+    def _is_blank(img) -> bool:
+        return float(np.asarray(img, np.float32).std()) < 1.0
+
     @classmethod
     def _normalize(cls, img: np.ndarray) -> np.ndarray:
         """Homogenize a bundle frame's appearance (offline pre-processing
@@ -95,9 +101,9 @@ class RuminationBackend:
         from ..ops import image as I
 
         img = np.asarray(img, np.float32)
-        s = float(img.std())
-        if s < 1.0:
+        if cls._is_blank(img):
             return img      # truly blank (covered lens): nothing to recover
+        s = float(img.std())
         if cls.BUNDLE_BLUR_SIGMA > 0:
             img = np.asarray(I.gaussian_blur(
                 jnp.asarray(img), sigma=cls.BUNDLE_BLUR_SIGMA,
@@ -130,9 +136,17 @@ class RuminationBackend:
         import jax.numpy as jnp
 
         anchor_times = np.asarray(sorted(anchor_times))
+        self.last_failure = None
         slam = SlamSystem(self.cfg)
         ok_frames = 0
         for f in bundle:
+            if self._is_blank(f.image):
+                # a covered-lens frame carries nothing to track: offline
+                # there is no deadline, so the builder steps over it and
+                # bridges the gap on its motion model instead of losing
+                # the track (prior-free relocalization from the first
+                # frame after the gap is unreliable, see ROADMAP)
+                continue
             if (len(anchor_times)
                     and np.min(np.abs(anchor_times - f.time)) < 1e-4):
                 # force the staleness trigger of NeedNewKeyFrame so an
@@ -143,6 +157,8 @@ class RuminationBackend:
             if st == TrackState.OK:
                 ok_frames += 1
         if slam.stats["n_kf"] < 4 or ok_frames < 4:
+            self.last_failure = (f"too_few_tracked: {slam.stats['n_kf']} KF, "
+                                 f"{ok_frames} OK of {len(bundle)} frames")
             return None
         ms = slam.ms
         from ..mapstate import map_state as M
@@ -153,6 +169,7 @@ class RuminationBackend:
         order = np.argsort(counts)[::-1]
         best = int(order[0])
         if counts[best] < 4:
+            self.last_failure = f"largest_submap_too_small: {counts}"
             return None
         self.last_weld_info = None
         if len(order) > 1 and counts[int(order[1])] >= 2:
@@ -194,7 +211,11 @@ class RuminationBackend:
                         and float(np.min(np.abs(
                             kf_t[:, None] - side[None, :]))) < 1e-3)
             if not (_hits(fa) and _hits(bb)):
-                return None     # one-sided reconstruction: useless to merge
+                # one-sided reconstruction: useless to merge
+                self.last_failure = (
+                    f"one_sided: submap KF counts {counts}, front anchors "
+                    f"hit {_hits(fa)}, back anchors hit {_hits(bb)}")
+                return None
         return cloud_map.from_map_state(ms, best)
 
     def _weld_submaps(self, slam: SlamSystem, dst_map: int, src_map: int,

@@ -127,6 +127,13 @@ class RuminationCoordinator:
                     None)
                 if cm is None:
                     info["result"] = "backend_failed"
+                    err = getattr(self.shard, "last_error", None)
+                    if err is not None:
+                        info["backend_error"] = repr(err)
+                    else:
+                        info["backend_reason"] = getattr(
+                            getattr(self.shard, "backend", None),
+                            "last_failure", None)
                     self.merged_maps.add(info["back"])
                     self.history.append(info)
                     return info
@@ -277,6 +284,8 @@ class RuminationCoordinator:
         info["backend_weld"] = getattr(self.backend, "last_weld_info", None)
         if cm is None:
             info["result"] = "backend_failed"
+            info["backend_reason"] = getattr(self.backend, "last_failure",
+                                             None)
             # one attempt per matured map — the reference marks BOTH maps
             # merged when the bundle is published, before any result
             # (CloudImageSampler.cc:190-191); without this the coordinator

@@ -1,4 +1,4 @@
-"""Asynchronous rumination shard: the edge/cloud process split, TPU-native.
+"""Asynchronous rumination shard: the edge/cloud process split on devices.
 
 The reference ships upload bundles to an external DROID-SLAM server over ROS
 actionlib and receives the CloudMap in a completion callback
@@ -40,6 +40,9 @@ class AsyncRuminationShard:
         self._out: queue.Queue = queue.Queue()
         self._busy = threading.Event()
         self._stop = threading.Event()
+        # the exception of the last failed build (None after a success): a
+        # failed build still reports (job_id, None), but is never silent
+        self.last_error: Optional[BaseException] = None
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
 
@@ -76,7 +79,11 @@ class AsyncRuminationShard:
 
     # -- shard side -----------------------------------------------------
     def _run(self):
+        import traceback
+
         import jax
+
+        from ..utils import verbose
 
         while not self._stop.is_set():
             item = self._in.get()
@@ -91,8 +98,14 @@ class AsyncRuminationShard:
                 else:
                     cm = self.backend.build(bundle, anchor_times=anchors,
                                             anchor_split=split)
-            except Exception:
+                self.last_error = None
+            except Exception as e:
                 cm = None
+                self.last_error = e
+                verbose.print_mess(
+                    f"[rumination] build {job_id} failed:\n"
+                    + "".join(traceback.format_exception(e)),
+                    verbose.Level.QUIET)
             self._out.put((job_id, cm))
             self._busy.clear()
 
@@ -100,7 +113,7 @@ class AsyncRuminationShard:
 def pick_rumination_device():
     """Place the rumination shard via the global ("host","chip") mesh: the
     LAST chip of the LAST host row, so in a multi-host deployment the
-    non-realtime build sits across the DCN boundary from the tracker on
+    non-realtime build sits across the network from the tracker on
     host 0 chip 0 — the same place the reference pays its ROS-TCP upload
     (parallel/distributed.py layout rule).  Single-device runs return None
     (backend shares the tracker's device)."""

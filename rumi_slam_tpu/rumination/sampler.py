@@ -1,6 +1,6 @@
 """Lost-frame recording + PD-controlled sampling + upload-bundle assembly.
 
-TPU-native equivalent of the reference's CloudImageSampler + KFDSample + PD
+JAX equivalent of the reference's CloudImageSampler + KFDSample + PD
 (/root/reference/src/rumi-slam/lib_src/CloudImageSampler.cc:44-202,
 KFDSample.cc, include pd.hpp:21-39).  While tracking is lost (or
 uninitialized) every raw frame is recorded and a PD-controlled optical-flow

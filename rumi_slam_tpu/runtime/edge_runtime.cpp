@@ -3,8 +3,9 @@
 // C++ equivalent of the reference's node driver plumbing
 // (/root/reference/src/rumi-slam/src/cloud_edge_main.cpp — Grabber::RunTxt
 // :550 dataset replay with real-time pacing :597-610, rosbag/image staging,
-// and scripts/nodes/pub_memory.py memory reporting).  The TPU compute path
-// stays in JAX; this module owns what must NOT sit on the Python interpreter:
+// and scripts/nodes/pub_memory.py memory reporting).  The device compute
+// path stays in JAX; this module owns what must NOT sit on the Python
+// interpreter:
 //   * a lock-free SPSC frame ring buffer between the IO/camera thread and
 //     the tracking loop (drop-oldest policy, timestamped),
 //   * a TUM-format dataset reader (rgb.txt + binary PGM/PPM decode) with a

@@ -1,6 +1,6 @@
 """Local mapping: new-point triangulation, local BA, culling (jitted).
 
-TPU-native equivalent of the reference's LocalMapping thread
+JAX equivalent of the reference's LocalMapping thread
 (/root/reference/src/rumi-slam/lib_src/LocalMapping.cc): CreateNewMapPoints
 (:354 — epipolar search + two-view triangulation), the local-BA call (:149 ->
 Optimizer.cc:1003) and MapPointCulling (:320).  Instead of a mapping thread
@@ -318,8 +318,8 @@ def global_bundle_adjustment(ms: M.MapState, K, map_id, *, n_iters: int = 12,
     ``mesh``: an optional jax.sharding.Mesh with axis "ba" — routes the
     solve through the distributed matrix-free PCG engine
     (parallel.sharded_ba.sharded_bundle_adjust_pcg), sharding points over
-    the mesh devices; this is the post-merge multi-chip GBA path
-    (SCALING.json).  None = single-device dense-Schur (default).
+    the mesh devices; this is the post-merge multi-device GBA path.
+    None = single-device dense-Schur (default).
     """
     import numpy as np
 

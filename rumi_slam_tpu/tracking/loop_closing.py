@@ -1,6 +1,6 @@
 """Loop closing: place recognition + Sim3 verification + pose-graph correction.
 
-TPU-native equivalent of the reference's LoopClosing thread
+JAX equivalent of the reference's LoopClosing thread
 (/root/reference/src/rumi-slam/lib_src/LoopClosing.cc): candidate detection
 (NewDetectCommonRegions / KeyFrameDatabase::DetectNBestCandidates, BoW),
 Sim3Solver RANSAC + projection verification, and CorrectLoop (:916) with

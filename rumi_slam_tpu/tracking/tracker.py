@@ -1,10 +1,10 @@
 """Jitted per-frame tracking computations.
 
-TPU-native equivalents of the hot paths in the reference's Tracking thread
+Array-program equivalents of the hot paths in the reference's Tracking thread
 (/root/reference/src/rumi-slam/lib_src/Tracking.cc): TrackWithMotionModel
 (:2441), TrackReferenceKeyFrame (:2324), TrackLocalMap (:2520,
 SearchLocalPoints :2996) — all collapsed onto one primitive:
-project-candidate-points -> masked MXU Hamming match -> motion-only BA.
+project-candidate-points -> masked int8 Hamming match -> motion-only BA.
 
 The reference runs two sequential match+optimize passes (motion model, then
 local map).  Here a single pass against the WHOLE active submap's points is
@@ -34,7 +34,7 @@ class TrackResult(NamedTuple):
     n_candidates: jnp.ndarray # scalar int32 — visible map points
 
 
-@partial(jax.jit, static_argnames=("img_w", "img_h", "fused"))
+@partial(jax.jit, static_argnames=("img_w", "img_h"))
 def track_frame(
     ms: M.MapState,
     K,
@@ -46,7 +46,6 @@ def track_frame(
     img_h: int,
     max_hamming=matcher.TH_HIGH,
     nn_ratio=0.9,
-    fused: bool = False,
 ):
     """Match frame features against the active submap's points around a pose
     prediction, then run motion-only BA.
@@ -54,9 +53,8 @@ def track_frame(
     ``radius``: projection search window in pixels (scalar; the reference
     widens it per octave — here a single wide gate, the ratio test does the
     rest).
-    ``fused``: route the masked Hamming match through the Pallas VMEM kernel
-    (ops.pallas_matcher) instead of materializing the [F, P] distance matrix
-    in HBM — TPU only; the host facade enables it per backend.
+    Matching is ``matcher.window_match``: the fused kernel on the GPU, the
+    plain reference on the CPU.
     """
     uv_proj, depth = camera.project_world(K, pose_pred, ms.pt_xyz)
     vis = (
@@ -69,31 +67,17 @@ def track_frame(
         & (uv_proj[:, 1] < img_h)
     )
 
-    if fused:
-        from ..ops.pallas_matcher import fused_match
-
-        idx, mdist = fused_match(
-            feats.desc, ms.pt_desc, feats.uv, uv_proj, radius, feats.valid,
-            vis, max_dist=max_hamming, ratio=nn_ratio,
-        )
-    else:
-        mask = matcher.radius_mask(feats.uv, uv_proj, radius)
-        dist = matcher.hamming_matrix(feats.desc, ms.pt_desc)  # [F, P]
-        idx, mdist = matcher.match(
-            dist,
-            feats.valid,
-            vis,
-            mask=mask,
-            max_dist=max_hamming,
-            ratio=nn_ratio,
-        )
+    idx, mdist = matcher.window_match(
+        feats.desc, ms.pt_desc, feats.uv, uv_proj, radius, feats.valid, vis,
+        max_dist=max_hamming, ratio=nn_ratio,
+    )
 
     # per-octave search radius (reference SearchByProjection:39 scales the
     # window by the candidate's pyramid level) and rotation consistency
     # (ComputeThreeMaxima, ORBmatcher.cc:1790): both run as ADAPTIVE
-    # POST-filters on the matched set — the same code serves the Pallas and
-    # plain paths at zero extra matmuls, and each filter only engages when
-    # the matches carry enough redundancy/signal for pruning to be safe
+    # POST-filters on the matched set — zero extra matmuls, and each filter
+    # only engages when the matches carry enough redundancy/signal for
+    # pruning to be safe
     # (the reference can afford unconditional gates because its real-image
     # keypoint angles/scales are far less noisy than a synthetic bench's).
     matched = idx >= 0
@@ -218,9 +202,9 @@ def relocalize_map(key, ms: M.MapState, K, feats, *,
 
     The reference relocalizes per retrieval candidate (SearchByBoW against
     one KF's features, Tracking.cc:3212) because a brute-force scan over the
-    map is hopeless on CPU.  On the MXU the full frame-vs-map Hamming matrix
-    is one matmul, and matching against the map's distinctive descriptors
-    sidesteps single-KF observation sparsity: any subset of map points the
+    map is hopeless on CPU.  On the GPU the full frame-vs-map Hamming matrix
+    is one int8 tensor-core matmul, and matching against the map's
+    distinctive descriptors sidesteps single-KF observation sparsity: any subset of map points the
     frame sees yields 3D-2D pairs for PnP-RANSAC, whichever keyframes
     observed them."""
     from ..optim import pnp
@@ -229,7 +213,7 @@ def relocalize_map(key, ms: M.MapState, K, feats, *,
     # not the single per-point representative: a point's appearance varies
     # across the viewpoints that saw it, and the reference's min-median
     # ComputeDistinctiveDescriptors is itself only a compromise for CPU
-    # memory — the MXU eats the full [F, K*Fk] matrix
+    # memory — one batched int8 product covers the full [F, K*Fk] matrix
     mid = ms.active_map if map_id is None else map_id
     obs_desc = ms.kf_desc.reshape(-1, 8)
     obs_pt = jnp.where(ms.kf_valid[:, None], ms.kf_point, -1).reshape(-1)
@@ -239,7 +223,7 @@ def relocalize_map(key, ms: M.MapState, K, feats, *,
         & (ms.pt_map_id[jnp.clip(obs_pt, 0)] == mid)
     )
     # tiled match: [F, K*Fk] at full capacity is ~1 GB — scan KF-chunks with
-    # a running top-2 instead (peak HBM = one [F, K*Fk/16] block)
+    # a running top-2 instead (peak device memory = one [F, K*Fk/16] block)
     idx, mdist = matcher.match_chunked(
         feats.desc, feats.valid, obs_desc, obs_ok,
         n_chunks=min(16, ms.max_kf), max_dist=max_hamming, ratio=nn_ratio,

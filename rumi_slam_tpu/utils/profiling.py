@@ -1,6 +1,6 @@
 """Per-stage timing + device tracing.
 
-TPU-native equivalent of the reference's REGISTER_TIMES instrumentation
+JAX equivalent of the reference's REGISTER_TIMES instrumentation
 (/root/reference/src/rumi-slam/lib_src/Tracking.h:197-211 per-stage ms
 vectors, Tracking::PrintTimeStats Tracking.cc:226) plus jax.profiler hooks
 for device-side traces.

@@ -28,6 +28,7 @@ class FakeBackend:
         self.calls += 1
         time.sleep(self.delay)
         if self.fail:
+            self.last_failure = "fake: told to fail"
             return None
         n_kf, n_feat, n_pt = 4, 8, 16
         return cloud_map.CloudMap(
@@ -103,3 +104,18 @@ def test_pick_rumination_device():
         assert dev is devs[-1]
     else:
         assert dev is None
+
+
+def test_backend_steps_over_blank_frames_and_says_why_it_failed():
+    """Covered-lens frames never reach the builder's tracker, and a build
+    that returns None names the gate it failed."""
+    from rumi_slam_tpu.rumination.backend import RuminationBackend
+
+    backend = RuminationBackend(tiny_config())
+    blank = np.full((240, 320), 40.0, np.float32)
+    assert backend._is_blank(blank)
+    assert not backend._is_blank(
+        np.random.default_rng(0).uniform(0, 255, (240, 320)))
+    bundle = [RecordedFrame(i / 30.0, blank) for i in range(6)]
+    assert backend.build(bundle) is None
+    assert backend.last_failure == "too_few_tracked: 0 KF, 0 OK of 6 frames"

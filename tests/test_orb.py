@@ -127,7 +127,7 @@ class TestMatcher:
         assert bool(m[0, 0]) and not bool(m[0, 1]) and not bool(m[1, 1])
 
     def test_chunked_matches_dense(self):
-        """match_chunked (the bounded-HBM whole-map reloc path) must agree
+        """match_chunked (the bounded-memory whole-map reloc path) must agree
         with the dense matcher exactly — same top-2, threshold, ratio."""
         a = jnp.asarray(RNG.integers(0, 2**32, size=(64, 8), dtype=np.uint32))
         b = jnp.asarray(RNG.integers(0, 2**32, size=(256, 8), dtype=np.uint32))

@@ -1,4 +1,5 @@
-"""Fused Pallas matcher equivalence (interpret mode) + global BA."""
+"""Fused Pallas matcher: equivalence (interpret mode), padding and the
+per-platform choice; global BA."""
 
 import numpy as np
 import pytest
@@ -9,23 +10,26 @@ import jax.numpy as jnp
 from rumi_slam_tpu.geometry import camera, lie
 from rumi_slam_tpu.mapstate import map_state as M
 from rumi_slam_tpu.ops import matcher
-from rumi_slam_tpu.ops.pallas_matcher import fused_match
+from rumi_slam_tpu.ops.fused_matcher import fused_match
 from rumi_slam_tpu.tracking.local_mapping import global_bundle_adjustment
 
 
-def test_fused_match_equals_reference():
+@pytest.mark.parametrize("F,P", [(256, 1024), (100, 1000), (130, 20),
+                                 (67, 1100)])
+def test_fused_match_equals_reference(F, P):
     rng = np.random.default_rng(0)
-    F, P = 256, 1024
     dq = jnp.asarray(rng.integers(0, 2**32, (F, 8), dtype=np.uint32))
     dp = jnp.asarray(rng.integers(0, 2**32, (P, 8), dtype=np.uint32))
     # duplicate some point descriptors from queries so real matches exist
-    rows = rng.choice(P, 100, replace=False)
-    qrows = rng.choice(F, 100, replace=False)
+    n = min(F, P, 100)
+    rows = rng.choice(P, n, replace=False)
+    qrows = rng.choice(F, n, replace=False)
     dp = dp.at[rows].set(dq[qrows])
     valid_q = jnp.asarray(rng.random(F) > 0.1)
     valid_p = jnp.asarray(rng.random(P) > 0.1)
     uv_q = jnp.asarray(rng.uniform(0, 300, (F, 2)), jnp.float32)
     uv_p = jnp.asarray(rng.uniform(0, 300, (P, 2)), jnp.float32)
+    uv_p = uv_p.at[rows].set(uv_q[qrows] + 5.0)
     radius = 60.0
 
     idx_f, dist_f = fused_match(dq, dp, uv_q, uv_p, radius, valid_q, valid_p,
@@ -36,8 +40,44 @@ def test_fused_match_equals_reference():
                                   max_dist=80.0, ratio=0.9)
     np.testing.assert_array_equal(np.asarray(idx_f), np.asarray(idx_r))
     matched = np.asarray(idx_r) >= 0
-    np.testing.assert_allclose(np.asarray(dist_f)[matched],
-                               np.asarray(dist_r)[matched])
+    assert matched.sum() > n // 2
+    np.testing.assert_array_equal(np.asarray(dist_f), np.asarray(dist_r))
+
+
+def _match_args(F=70, P=300):
+    rng = np.random.default_rng(1)
+    return (jnp.asarray(rng.integers(0, 2**32, (F, 8), dtype=np.uint32)),
+            jnp.asarray(rng.integers(0, 2**32, (P, 8), dtype=np.uint32)),
+            jnp.zeros((F, 2)), jnp.zeros((P, 2)), jnp.float32(15.0),
+            jnp.ones(F, bool), jnp.ones(P, bool))
+
+
+def test_window_match_picks_kernel_per_platform():
+    """One choice point: the Triton kernel when lowered for CUDA, the plain
+    reference on the CPU, an error anywhere else."""
+    traced = jax.jit(matcher.window_match).trace(*_match_args())
+    cuda = traced.lower(lowering_platforms=("cuda",)).as_text()
+    cpu = traced.lower(lowering_platforms=("cpu",)).as_text()
+    assert "fused_window_match" in cuda and "triton" in cuda
+    assert "fused_window_match" not in cpu and "triton" not in cpu
+    with pytest.raises(NotImplementedError):
+        traced.lower(lowering_platforms=("rocm",))
+
+
+@pytest.mark.parametrize("F,P,Fp,ps", [
+    (2000, 16384, 2048, 1024),
+    (70, 300, 128, 64),
+    (65, 5001, 128, 512),
+])
+def test_fused_match_pads_to_tiles(F, P, Fp, ps):
+    """Queries pad to the 64-query tile, points to 16 power-of-two splits of
+    whole 64-point sub-tiles: the kernel's operands take these shapes."""
+    args = _match_args(F, P)
+    jaxpr = jax.make_jaxpr(lambda *a: fused_match(
+        *a, interpret=True))(*args)
+    txt = str(jaxpr)
+    assert f"i8[{Fp},256]" in txt and f"i8[{ps * 16},256]" in txt
+    assert f"f32[16,{Fp}]" in txt
 
 
 def test_global_bundle_adjustment_reduces_error():

@@ -179,6 +179,7 @@ def test_sync_backend_failure_is_single_attempt():
 
     info = coord._run_rumination(0, 1)
     assert info["result"] == "backend_failed"
+    assert info["backend_reason"] == "fake: told to fail"
     assert backend.calls == 1
     # the back map is now marked attempted: maybe_ruminate's
     # `active in merged_maps` guard prevents any further build
